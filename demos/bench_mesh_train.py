@@ -1,21 +1,22 @@
-"""1-dev-mesh full-train bench (VERDICT r3 #3 done-criterion): the
-complete staged SR-D pipeline (OPQ -> ChainQ -> SR-D) through
-`api.train(..., mesh=)` on the real chip with a 1-device mesh, A/B'd
-same-run against the meshless path — the 1-chip anchor the >=85%
-multi-chip scaling target will be measured against.
+"""1-device-mesh full-train bench: the complete staged SR-D pipeline
+(OPQ -> ChainQ -> SR-D) through `api.train(..., mesh=)` on one card
+with a 1-device mesh, A/B'd in the same run against the meshless path
+— the single-card anchor for multi-card scaling.
 
 Reference anchor: the reference makes distribution ambient via
-`addprocs` + Distributed workers (`/root/reference/src/Rayuela.jl:10,31`);
-here the facade's `mesh=` kwarg is the equivalent switch.
+`addprocs` + Distributed workers (`src/Rayuela.jl:10,31`); here the
+facade's `mesh=` kwarg is the equivalent switch.
 
-Run standalone: timeout 3600 python demos/bench_mesh_train.py /tmp/mtrain.log
+    python demos/bench_mesh_train.py mtrain.log
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-LOG = sys.argv[1] if len(sys.argv) > 1 else "/tmp/mtrain.log"
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+LOG = sys.argv[1] if len(sys.argv) > 1 else "mtrain.log"
 _log = open(LOG, "w")
 
 
@@ -26,13 +27,14 @@ def log(*a):
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/rayuela_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
     import numpy as np
 
     from rayuela_tpu import api
     from rayuela_tpu.parallel.mesh import make_mesh
+    from rayuela_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     log("devices:", jax.devices())
     n, d, m, h, niter = 100_000, 128, 8, 256, 5

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
 """query=base protocol at the reference's ntrials=10
-(`/root/reference/demos/demos_query_base.jl:15`) — VERDICT r4 #3.
+(`demos/demos_query_base.jl:15`).
 
-Round 4 quoted mean±std from 2-3 trials; this runs the full 10-trial
-protocol on both reference shapes (LabelMe22K: n=20019 base==train,
-nq=2000; MNIST: n=60000, nq=10000) on synthetic-corr data with exact
-ground truth, and reports mean±std + the method ordering.
+This runs the full 10-trial protocol on both reference shapes
+(LabelMe22K: n=20019 base==train, nq=2000; MNIST: n=60000, nq=10000)
+on synthetic-corr data with exact ground truth, and reports mean±std
++ the method ordering.
 
 Usage: python demos/bench_query_base10.py [labelme|mnist] [ntrials]
 """
@@ -13,14 +13,18 @@ Usage: python demos/bench_query_base10.py [labelme|mnist] [ntrials]
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-import jax
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/rayuela_jax_cache")
+from rayuela_tpu.utils import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 SHAPES = {
     # reference demos/demos_query_base.jl:17-24
@@ -38,14 +42,14 @@ def main():
 
     # queries perturb Xb rows, which run_query_base discards in favor
     # of Xt as the searched base — so queries are cluster draws NOT
-    # present in the searched set (the hard regime round 4 used)
+    # present in the searched set (the hard regime)
     ds = make_synthetic(d=128, ntrain=cfg["ntrain"], nbase=4096,
                         nquery=cfg["nquery"], ncenters=64, seed=7,
                         corr=True, name=f"synthetic-corr-qb-{shape}")
     t0 = time.time()
     res = run_query_base(ds, m=8, h=256, niter=10, ntrials=ntrials,
                          knn=1000,
-                         results_dir=f"/tmp/qb10_{shape}_results",
+                         results_dir=f"qb10_{shape}_results",
                          verbose=True, seed=0)
     wall = time.time() - t0
 
@@ -63,7 +67,7 @@ def main():
         r = rows[m_]
         print(f"{m_:8s} r@1 = {r['mean']:.4f} +- {r['std']:.4f}")
     print("ordering:", " < ".join(order))
-    out = f"/tmp/qb10_{shape}.json"
+    out = f"qb10_{shape}.json"
     with open(out, "w") as f:
         json.dump(dict(shape=shape, ntrials=ntrials, wall_s=wall,
                        rows=rows, ordering=order), f, indent=1)

@@ -1,26 +1,23 @@
-"""Run the GP-surrogate HPO for real (VERDICT r2 item 9; r4 #6 adds
-the 128-bit space): budget ~20 full train->encode->search evaluations
-on synthetic-corr-small, record the incumbent and its recall delta vs
-the default config.
+"""Run the GP-surrogate HPO for real: budget ~20 full
+train->encode->search evaluations on synthetic-corr-small (64- or
+128-bit codes), record the incumbent and its recall delta vs the
+default config.
 
-Reference anchor: `/root/reference/smac/configure.py:100-110` (SMAC
+Reference anchor: `smac/configure.py:100-110` (SMAC
 over the same space, minimizing 1 - recall@1). The reference's own
 recorded incumbents diverge most from the defaults at m=16
 (`smac/test_lsq.jl:208-226`), which is why the 128-bit campaign
 matters.
 
-    timeout 7200 python demos/run_hpo_real.py /tmp/hpo16.log 16 20
+    python demos/run_hpo_real.py hpo16.log 16 20
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-# NOTE: some (ilsiter, icmiter) shapes overflow XLA's default 16 MB
-# scoped VMEM when it co-places the (2048, 2048) solve with kernel
-# outputs; the objective scores those configs loss=1.0 (the
-# --xla_tpu_scoped_vmem_limit_kib escape hatch cannot be set here:
-# the local CPU XLA fatals on unknown flags in XLA_FLAGS)
-LOG = sys.argv[1] if len(sys.argv) > 1 else "/tmp/hpo_real.log"
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+LOG = sys.argv[1] if len(sys.argv) > 1 else "hpo_real.log"
 M_ARG = int(sys.argv[2]) if len(sys.argv) > 2 else 8
 BUDGET = int(sys.argv[3]) if len(sys.argv) > 3 else 20
 _log = open(LOG, "w")
@@ -33,8 +30,10 @@ def log(*a):
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/rayuela_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+    from rayuela_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     from rayuela_tpu.experiments.datasets import read_dataset
     from rayuela_tpu.experiments.hpo import (LSQConfig, default_objective,
@@ -42,7 +41,7 @@ def main():
 
     log("devices:", jax.devices())
     ds = read_dataset("synthetic-corr-small")
-    # M_ARG = codebook count, matching the round-4 m=8 campaign row
+    # M_ARG = codebook count
     m, h, niter = M_ARG, 256, 5
     log(f"space: m={m} codebooks, budget={BUDGET}")
     obj = default_objective(ds, m, h, niter)

@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""Multi-chip scaling benchmark: sharded SR training step + sharded
-ADC scan at 1..N devices, reporting per-chip efficiency.
+"""Multi-card scaling benchmark: sharded SR training step + sharded
+ADC scan at 1..N devices, reporting per-card efficiency.
 
-On a real pod slice this measures the ≥85% scaling target
-(BASELINE.md); on one host it runs against virtual CPU devices
-(--force-cpu-devices N) to validate the code path and communication
-structure. The same `shard_map` programs run in both cases — only the
-mesh differs.
+On a multi-card host this measures scaling; on the CPU it runs against
+virtual devices (--force-cpu-devices N) to validate the code path and
+communication structure. The same `shard_map` programs run in both
+cases — only the mesh differs.
 """
 
 from __future__ import annotations

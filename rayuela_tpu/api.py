@@ -7,7 +7,7 @@ the same primitives:
     import rayuela_tpu.api as rq
     model = rq.train(Xt, method="sr_d", m=7, h=256)     # any method
     index = rq.index_base(model, Xb)                    # encode + decode-index
-    dists, ids = rq.search(index, Q, k=100)             # fused Pallas scan
+    dists, ids = rq.search(index, Q, k=100)             # fused scan
 """
 
 from __future__ import annotations
@@ -45,9 +45,10 @@ class MCQModel:
 class MCQIndex:
     """A searchable base set: codes + scan index + norms.
 
-    ``mode="decoded"`` keeps an (n, d) f32 decode on chip (fastest);
-    ``mode="codes"`` keeps only the packed uint8 codes (~m bytes/vector
-    — 64x smaller; the reference's deployment memory model)."""
+    ``mode="decoded"`` keeps an (n, d) decode on the device (bf16 on
+    the GPU); ``mode="codes"`` keeps only the packed uint8 codes
+    (~m bytes/vector — 32x smaller at d=128, m=8; the reference's
+    deployment memory model)."""
     model: MCQModel
     codes: Array                   # (n, m) int32
     scan_index: Any                # LinscanIndex | CodesIndex
@@ -59,14 +60,15 @@ class MCQIndex:
 def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
           niter: int = 25, key=None, mesh=None, **kw) -> MCQModel:
     """Train any MCQ method with the reference pipeline semantics
-    (staged OPQ → ChainQ init for the LSQ family).
+    (staged OPQ → ChainQ init for the LSQ family). The final stage's
+    objective per iteration is kept in ``extras["train_error"]``.
 
     Pass ``mesh`` (a `rayuela_tpu.parallel.mesh.make_mesh` result) to
-    train data-parallel across the mesh's chips: ChainQ and the LSQ
+    train data-parallel across the mesh's devices: ChainQ and the LSQ
     family route to the explicit `shard_map` steps in
     `rayuela_tpu.parallel` (psum'd normal-equation stats + replicated
-    solves, per-shard Viterbi/ICM encoding — the TPU mapping of the
-    reference's Distributed-worker farm, `src/Rayuela.jl:10,31`); the
+    solves, per-shard Viterbi/ICM encoding — the device-mesh mapping of
+    the reference's Distributed-worker farm, `src/Rayuela.jl:10,31`); the
     remaining methods run with ``Xt`` sharded over the ``data`` axis so
     GSPMD inserts the collectives for their matmul/reduction training
     statistics."""
@@ -85,40 +87,45 @@ def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
         Xt = shard_data(mesh, Xt)
 
     if method == "pq":
-        model, B, _ = M.train_pq(key, Xt, m, h, iters=niter, **kw)
-        return MCQModel("pq", model.codebooks, h=h, train_codes=B)
+        model, B, obj = M.train_pq(key, Xt, m, h, iters=niter, **kw)
+        return MCQModel("pq", model.codebooks, h=h, train_codes=B,
+                        extras={"train_error": obj})
     if method == "opq":
-        model, B, _ = M.train_opq(key, Xt, m, h, niter=niter, **kw)
+        model, B, obj = M.train_opq(key, Xt, m, h, niter=niter, **kw)
         return MCQModel("opq", model.codebooks, R=model.R, h=h,
-                        train_codes=B)
+                        train_codes=B, extras={"train_error": obj})
     if method == "rvq":
-        model, B, _ = M.train_rvq(key, Xt, m, h, niter=niter, **kw)
-        return MCQModel("rvq", model.codebooks, h=h, train_codes=B)
+        model, B, obj = M.train_rvq(key, Xt, m, h, niter=niter, **kw)
+        return MCQModel("rvq", model.codebooks, h=h, train_codes=B,
+                        extras={"train_error": obj})
     if method == "ervq":
-        model, B, _ = M.train_ervq_from_scratch(key, Xt, m, h,
-                                                niter=niter, **kw)
-        return MCQModel("ervq", model.codebooks, h=h, train_codes=B)
+        model, B, obj = M.train_ervq_from_scratch(key, Xt, m, h,
+                                                  niter=niter, **kw)
+        return MCQModel("ervq", model.codebooks, h=h, train_codes=B,
+                        extras={"train_error": obj})
     if method == "compq":
         rvq, B0, _ = M.train_rvq(key, Xt, m, h, niter=niter)
-        model, B, _ = M.train_compq(Xt, rvq.codebooks, B0, niter=niter,
-                                    **kw)
-        return MCQModel("compq", model.codebooks, h=h, train_codes=B)
+        model, B, obj = M.train_compq(Xt, rvq.codebooks, B0,
+                                      niter=niter, **kw)
+        return MCQModel("compq", model.codebooks, h=h, train_codes=B,
+                        extras={"train_error": obj})
 
     # LSQ family: OPQ → ChainQ → {chainq | lsq | sr}
     opq, B0, _ = M.train_opq(key, Xt, m, h, niter=niter)
     if method == "chainq":
-        model, B, _ = M.train_chainq(Xt, B0, opq.R, h=h, niter=niter,
-                                     **kw)
+        model, B, obj = M.train_chainq(Xt, B0, opq.R, h=h,
+                                       niter=niter, **kw)
         return MCQModel("chainq", model.codebooks, R=model.R, h=h,
-                        train_codes=B)
+                        train_codes=B, extras={"train_error": obj})
     cq, B1, _ = M.train_chainq(Xt, B0, opq.R, h=h, niter=niter)
     if method == "lsq":
-        model, B, _ = M.train_lsq(key, Xt, B1, cq.R, h=h, niter=niter,
-                                  **kw)
+        model, B, obj = M.train_lsq(key, Xt, B1, cq.R, h=h,
+                                    niter=niter, **kw)
     else:
-        model, B, _ = M.train_sr(key, Xt, B1, cq.R, h=h, niter=niter,
-                                 method=method.upper(), **kw)
-    return MCQModel(method, model.codebooks, h=h, train_codes=B)
+        model, B, obj = M.train_sr(key, Xt, B1, cq.R, h=h, niter=niter,
+                                   method=method.upper(), **kw)
+    return MCQModel(method, model.codebooks, h=h, train_codes=B,
+                    extras={"train_error": obj})
 
 
 def _train_sharded(mesh, key, Xt, method: str, m: int, h: int,
@@ -133,17 +140,18 @@ def _train_sharded(mesh, key, Xt, method: str, m: int, h: int,
     opq, B0, _ = M.train_opq(key, shard_data(mesh, Xt), m, h,
                              niter=niter)
     if method == "chainq":
-        model, B, _ = train_chainq_sharded(mesh, Xt, B0, opq.R, h=h,
-                                           niter=niter, **kw)
+        model, B, obj = train_chainq_sharded(mesh, Xt, B0, opq.R, h=h,
+                                             niter=niter, **kw)
         return MCQModel("chainq", model.codebooks, R=model.R, h=h,
-                        train_codes=B)
+                        train_codes=B, extras={"train_error": obj})
     cqm, B1, _ = train_chainq_sharded(mesh, Xt, B0, opq.R, h=h,
                                       niter=niter)
     name = {"lsq": "LSQ", "sr_c": "SR_C", "sr_d": "SR_D"}[method]
-    model, B, _ = train_lsq_family_sharded(mesh, key, Xt, B1, cqm.R,
-                                           h=h, niter=niter,
-                                           method=name, **kw)
-    return MCQModel(method, model.codebooks, h=h, train_codes=B)
+    model, B, obj = train_lsq_family_sharded(mesh, key, Xt, B1, cqm.R,
+                                             h=h, niter=niter,
+                                             method=name, **kw)
+    return MCQModel(method, model.codebooks, h=h, train_codes=B,
+                    extras={"train_error": obj})
 
 
 def encode(model: MCQModel, X, key=None, **kw) -> Array:
@@ -180,10 +188,10 @@ def index_base(model: MCQModel, Xb, key=None, mode: str = "decoded",
                **kw) -> MCQIndex:
     """Encode the base set and build the scan index (+ norms byte for
     non-orthogonal methods). ``mode="codes"`` builds the code-resident
-    index (~m bytes/vector on chip) instead of the decoded one."""
+    index (~m bytes/vector on the device) instead of the decoded one."""
+    from rayuela_tpu.search.codes import build_codes_index
+    from rayuela_tpu.search.linscan import build_index
     from rayuela_tpu.search.norms import get_norms_codebook, quantize_norms
-    from rayuela_tpu.search.scan_codes_pallas import build_codes_index
-    from rayuela_tpu.search.scan_pallas import build_index
 
     if mode not in ("decoded", "codes"):
         raise ValueError(f"mode {mode!r}: 'decoded' or 'codes'")
@@ -216,65 +224,57 @@ def search(index: MCQIndex, Q, k: int = 100, mesh=None,
            **kw) -> tuple[Array, Array]:
     """Top-k ADC search (rotates queries when the model has R).
 
-    Pass ``mesh`` (a `rayuela_tpu.parallel.mesh.make_mesh` result) to
-    run the search data-parallel across the mesh's chips: the index
-    shards over the ``data`` axis, local top-k lists merge with one
-    all-gather, and certificate-flagged queries re-run exactly —
-    the same exactness contract as the single-chip path."""
-    from rayuela_tpu.search import linscan
-    from rayuela_tpu.search import scan_codes_pallas, scan_pallas
+    On the GPU each index type runs the fused scan kernel
+    (`rayuela_tpu.search.scan_kernel`) and repairs the queries its
+    certificate flags with the exact XLA oracle; on the CPU the oracle
+    runs alone. ``interpret=True`` (tests) runs the kernel in
+    interpret mode instead.
 
-    Q = jnp.asarray(Q)
-    if index.model.R is not None and index.model.method == "chainq":
-        Q = jnp.matmul(Q, index.model.R,
-                       preferred_element_type=jnp.float32)
-    elif index.model.method == "opq":
+    Pass ``mesh`` (a `rayuela_tpu.parallel.mesh.make_mesh` result) to
+    run the search data-parallel across the mesh's devices: the index
+    shards over the ``data`` axis, local top-k lists merge with one
+    all-gather, and certificate-flagged queries re-run exactly — the
+    same exactness contract as the single-device path."""
+    from rayuela_tpu.search import codes, linscan
+
+    Q = jnp.asarray(Q, jnp.float32)
+    if index.model.R is not None and index.model.method in ("chainq",
+                                                            "opq"):
         Q = jnp.matmul(Q, index.model.R,
                        preferred_element_type=jnp.float32)
     k = min(k, index.scan_index.n)
-    if mesh is not None:
-        from rayuela_tpu.parallel import mesh as pmesh
-
+    if mesh is None:
         if index.mode == "codes":
-            d = Q.shape[1] if index.scan_index.d in (-1, None) \
-                else index.scan_index.d
-            T = scan_codes_pallas.build_luts(
-                index.model.codebooks, Q, pq=index.model.pq_layout,
-                d=d, norms_cbook=index.norms_codebook)
-            s, i, fl = pmesh.sharded_search_codes(
-                mesh, T, index.scan_index.packed, k=k, **kw)
-            fl = np.asarray(fl)
-            if fl.any():
-                # certificate-flagged queries re-run exactly through
-                # the TILED XLA LUT oracle (segment x query-block
-                # merge; same contract as single-chip). A whole-base
-                # unpack_codes + xla_lut_scan here materialized ~4*m
-                # bytes/vector + an (nflagged, n) score matrix — OOM
-                # at n >= 1e8 (VERDICT r4 #1)
-                qidx = np.nonzero(fl)[0]
-                s2, i2 = scan_codes_pallas._xla_lut_scan_tiled(
-                    index.scan_index, Q[qidx], k, d,
-                    kw.get("lut_dtype", jnp.float32))
-                s = s.at[qidx].set(s2)
-                i = i.at[qidx].set(i2)
-            q2 = jnp.sum(Q * Q, axis=-1, keepdims=True)
-            return s + q2, i
-        nt = (None if index.norms_codebook is None else
-              jnp.take(index.norms_codebook, index.norm_codes))
-        return pmesh.sharded_search_exact(
-            mesh, index.scan_index.Xd, index.scan_index.x2, Q, k=k,
-            C=index.model.codebooks, B=index.codes,
-            pq=index.model.pq_layout, norm_term=nt, **kw)
+            return codes.search_codes(index.scan_index, Q, k, **kw)
+        return linscan.search(index.scan_index, Q, k, **kw)
+
+    from rayuela_tpu.parallel import mesh as pmesh
+
     if index.mode == "codes":
-        if jax.default_backend() == "cpu":
-            kw.setdefault("interpret", True)
-            kw.setdefault("lut_dtype", jnp.float32)
-        return scan_codes_pallas.search_codes(index.scan_index, Q, k,
-                                              **kw)
-    if jax.default_backend() == "cpu":
-        return linscan.exact_rescan(Q, index.scan_index.Xd,
-                                    index.scan_index.x2, k)
-    return scan_pallas.search(index.scan_index, Q, k, **kw)
+        si = index.scan_index
+        d = Q.shape[1] if si.d in (-1, None) else si.d
+        lut_dtype = kw.pop("lut_dtype", jnp.float32)
+        s, i, fl = pmesh.sharded_search_codes(
+            mesh, Q, index.model.codebooks, si.packed, k=k,
+            pq=index.model.pq_layout, d=d,
+            norms_cbook=index.norms_codebook, **kw)
+        fl = np.asarray(fl)
+        if fl.any():
+            # flagged queries re-run through the TILED XLA LUT oracle
+            # (segment x query-block merge): a whole-base unpack plus
+            # an (nflagged, n) score matrix would not fit at n >= 1e8
+            qidx = np.nonzero(fl)[0]
+            s2, i2 = codes._xla_lut_scan_tiled(si, Q[qidx], k, d,
+                                               lut_dtype)
+            s = s.at[qidx].set(s2)
+            i = i.at[qidx].set(i2)
+        return s + jnp.sum(Q * Q, axis=-1, keepdims=True), i
+    nt = (None if index.norms_codebook is None else
+          jnp.take(index.norms_codebook, index.norm_codes))
+    return pmesh.sharded_search_exact(
+        mesh, index.scan_index.Xd, index.scan_index.x2, Q, k=k,
+        C=index.model.codebooks, B=index.codes,
+        pq=index.model.pq_layout, norm_term=nt, **kw)
 
 
 def search_streamed(model: MCQModel, B_packed, Q, k: int = 100,
@@ -283,25 +283,22 @@ def search_streamed(model: MCQModel, B_packed, Q, k: int = 100,
                     **kw) -> tuple[Array, Array]:
     """Top-k ADC search over a base TOO LARGE for device memory: the
     packed codes stay in HOST memory (a numpy array or an `np.memmap`
-    over an on-disk code file, `scan_codes_pallas.pack_codes` layout —
-    norms byte included for additive methods) and stream through the
-    chip shard by shard with an exact host-side merge; the next
-    shard's transfer is prefetched behind the current shard's scan.
+    over an on-disk code file, `rayuela_tpu.search.codes.pack_codes`
+    layout — norms byte included for additive methods) and stream
+    through the device shard by shard with an exact host-side merge;
+    the next shard's transfer is prefetched behind the current shard's
+    scan.
 
     The facade rung of the memory-tiling ladder above
     ``index_base(mode="codes")`` (reference ``nsplits``,
-    `src/LSQ_GPU.jl:218-264`): one chip holds ~1e9 codes resident;
-    this extends to bases bounded only by host RAM/disk. Rotates
-    queries for OPQ/ChainQ models like `search`."""
-    from rayuela_tpu.search import scan_codes_pallas
+    `src/LSQ_GPU.jl:218-264`): bases bounded only by host RAM/disk.
+    Rotates queries for OPQ/ChainQ models like `search`."""
+    from rayuela_tpu.search.codes import search_codes_streamed
 
-    Q = jnp.asarray(Q)
+    Q = jnp.asarray(Q, jnp.float32)
     if model.R is not None and model.method in ("opq", "chainq"):
         Q = jnp.matmul(Q, model.R, preferred_element_type=jnp.float32)
-    if jax.default_backend() == "cpu":
-        kw.setdefault("interpret", True)
-        kw.setdefault("lut_dtype", jnp.float32)
-    return scan_codes_pallas.search_codes_streamed(
+    return search_codes_streamed(
         model.codebooks, B_packed, Q, k, pq=model.pq_layout,
         norms_cbook=norms_cbook, mprime=mprime, shard_n=shard_n, **kw)
 
@@ -378,11 +375,11 @@ def save_index(path: str, index: MCQIndex) -> None:
 
 def load_index(path: str, mode: str | None = None) -> MCQIndex:
     """Rebuild a saved index. ``mode`` overrides the saved layout
-    (e.g. load a "decoded"-saved index as "codes" on a smaller chip)."""
+    (e.g. load a "decoded"-saved index as "codes" on a smaller card)."""
     import h5py
 
-    from rayuela_tpu.search.scan_codes_pallas import build_codes_index
-    from rayuela_tpu.search.scan_pallas import build_index
+    from rayuela_tpu.search.codes import build_codes_index
+    from rayuela_tpu.search.linscan import build_index
 
     with h5py.File(path, "r") as f:
         model = _read_model(f["model"])

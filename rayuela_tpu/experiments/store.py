@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import os
 
-import h5py
 import numpy as np
 
 
@@ -34,6 +33,8 @@ def save_results(path: str, trial: int, *, C, B, train_error,
     Covers all reference flavors (``save_results_pq/_opq/_lsq`` and
     their ``_query_base`` variants) via optional fields."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    import h5py      # only the result store needs it
+
     with h5py.File(path, "a") as f:
         g = f"{trial}"
         if g in f:
@@ -71,6 +72,8 @@ def load_results(path: str, trial: int) -> dict:
     Reference ``load_chainq``/``load_rvq``
     (`demos/experiment_utils.jl:45-60`)."""
     out: dict = {}
+    import h5py
+
     with h5py.File(path, "r") as f:
         grp = f[f"{trial}"]
         cbs = sorted((k for k in grp if k.startswith("C_")),
@@ -89,5 +92,7 @@ def load_results(path: str, trial: int) -> dict:
 def list_trials(path: str) -> list[int]:
     if not os.path.exists(path):
         return []
+    import h5py
+
     with h5py.File(path, "r") as f:
         return sorted(int(k) for k in f.keys() if k.isdigit())

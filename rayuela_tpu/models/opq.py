@@ -25,7 +25,7 @@ from jax import lax
 from rayuela_tpu.models.pq import PQModel, _split_subspaces
 from rayuela_tpu.ops.kmeans import assign
 from rayuela_tpu.ops.qerror import reconstruct_pq
-from rayuela_tpu.utils import gather_rows, one_hot
+from rayuela_tpu.utils import one_hot
 
 Array = jax.Array
 

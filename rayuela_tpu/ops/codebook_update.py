@@ -71,7 +71,7 @@ def codebook_stats(X: Array, B: Array, h: int = 256,
         Bc = lax.dynamic_slice_in_dim(B, i * chunk, chunk)
         U = jax.nn.one_hot(Bc, h, dtype=jnp.float32).reshape(chunk, mh)
         # G is exact at any precision (0/1 products, f32 accumulation);
-        # F needs HIGHEST or the default bf16 pass rounds X's values
+        # F needs HIGHEST or a TF32/bf16 pass rounds X's values
         G = G + jnp.matmul(U.T, U, preferred_element_type=jnp.float32)
         F = F + jnp.matmul(U.T, Xc, preferred_element_type=jnp.float32,
                            precision=lax.Precision.HIGHEST)

@@ -91,7 +91,9 @@ def update_centers(X: Array, a: Array, k: int, old_centers: Array,
     """
     oh = one_hot(a, k, dtype=jnp.float32)                       # exact {0,1}
     counts = jnp.sum(oh, axis=0)                                # (k,)
-    sums = jnp.matmul(oh.T, X, preferred_element_type=jnp.float32)
+    # HIGHEST: a TF32/bf16 pass would round X's values inside the sum
+    sums = jnp.matmul(oh.T, X, preferred_element_type=jnp.float32,
+                      precision=lax.Precision.HIGHEST)
     new_centers = jnp.where(
         (counts > 0)[:, None], sums / jnp.maximum(counts, 1.0)[:, None],
         old_centers)

@@ -3,11 +3,12 @@
 Equivalents of reference `src/qerrors.jl` (``reconstruct`` :6-33,
 ``veccost`` :36-66, ``qerror`` :69-74, ``qerror_pq/_opq`` :77-100) and of
 the MRF-term helpers in `src/utils.jl` (``get_unaries`` :121-149,
-``get_binaries`` :152-171), reformulated for the MXU:
+``get_binaries`` :152-171):
 
-* decoding a code is a row-gather from each codebook — expressed as a
-  one-hot matmul (`rayuela_tpu.utils.gather_rows`);
-* per-vector cost is a fused elementwise-square + row reduction (VPU).
+* decoding a code is a row-gather from each codebook
+  (`rayuela_tpu.utils.gather_rows`), exact at any precision;
+* per-vector cost is a fused elementwise-square + row reduction, also
+  free of matmuls, so `qerror` is an exact f32 sum on every platform.
 
 Data model: ``C (m, h, d)`` full-dimensional codebooks (additive:
 ``x_hat = sum_i C[i, B[:, i]]``) or ``C (m, h, d//m)`` per-subspace
@@ -62,7 +63,7 @@ def veccost(X: Array, C: Array, B: Array, *, pq: bool = False) -> Array:
     """Per-vector squared reconstruction error (n,).
 
     Reference `src/qerrors.jl:36-66` (devectorized SIMD loop there; a
-    fused gemm + VPU reduction here)."""
+    gather + fused reduction here)."""
     Xr = reconstruct_pq(C, B, X.shape[1]) if pq else reconstruct(C, B)
     e = X - Xr
     return jnp.sum(e * e, axis=-1)
@@ -121,7 +122,7 @@ def get_binaries(C: Array) -> Array:
     ``binaries[i, j] = 2 * C_i @ C_j^T`` (diagonal unused).
 
     Reference `src/utils.jl:152-171` materializes only the upper
-    triangle; on TPU the full (m, m, h, h) tensor is one einsum and at
-    m=16, h=256 is 64 MB — fine in HBM."""
+    triangle; here the full (m, m, h, h) tensor is one einsum and at
+    m=16, h=256 is 64 MB — fine in device memory."""
     return 2.0 * jnp.einsum("ihd,jgd->ijhg", C, C,
                             preferred_element_type=jnp.float32)

@@ -7,10 +7,11 @@ CUDA `viterbi_forward` kernel (`deps/src/cudautils.cu:198-291`) — as ONE
 batched formulation:
 
 * unaries ``|c|^2 - 2 c.x`` for all (vector, stage, label) come from a
-  single (n, d) x (d, m*h) gemm on the MXU;
+  single (n, d) x (d, m*h) matmul;
 * the forward pass is a `lax.scan` over the m-1 chain edges whose body
-  is a broadcasted (chunk, h, h) min-plus reduction on the VPU — all n
-  vectors advance one stage per step, instead of one vector at a time;
+  is a broadcasted (chunk, h, h) min-plus reduction, which XLA fuses
+  into one reduction — all n vectors advance one stage per step,
+  instead of one vector at a time;
 * the backtrace is a reverse `lax.scan` of per-vector argmin-table
   gathers.
 
@@ -37,16 +38,19 @@ def chain_binaries(C: Array) -> Array:
     """Adjacent-pair MRF terms ``(m-1, h, h)``: ``2 C_i C_{i+1}^T``.
 
     Reference `src/ChainQ.jl:316-319` (only adjacent pairs exist in the
-    chain)."""
+    chain). HIGHEST precision: Viterbi is exact on these terms, so a
+    TF32 pass would change which codes win."""
     return 2.0 * jnp.einsum("ihd,igd->ihg", C[:-1], C[1:],
-                            preferred_element_type=jnp.float32)
+                            preferred_element_type=jnp.float32,
+                            precision=lax.Precision.HIGHEST)
 
 
 def chain_unaries(X: Array, C: Array) -> Array:
     """Unary terms ``(m, n, h)``: ``|c|^2 - 2 c.x``."""
     c2 = jnp.sum(C * C, axis=-1)                          # (m, h)
     xc = jnp.einsum("nd,mhd->mnh", X, C,
-                    preferred_element_type=jnp.float32)
+                    preferred_element_type=jnp.float32,
+                    precision=lax.Precision.HIGHEST)
     return c2[:, None, :] - 2.0 * xc
 
 
@@ -78,24 +82,12 @@ def _viterbi_chunk(u: Array, binaries: Array) -> Array:
     return jnp.concatenate([b_first[:, None], jnp.transpose(rest)], axis=1)
 
 
-def viterbi_encode(X: Array, C: Array, chunk: int = 2048,
-                   impl: str = "auto") -> Array:
+def viterbi_encode(X: Array, C: Array, chunk: int = 2048) -> Array:
     """Exact chain-optimal codes ``(n, m) int32`` for all vectors.
 
-    The TPU-native `quantize_chainq` (reference `src/ChainQ.jl:305-348`,
-    which dispatches to Julia/C++/CUDA backends). ``impl``: ``auto``
-    picks the fused Pallas kernel on TPU (VMEM-resident forward pass +
-    recomputed backtrace, `rayuela_tpu.ops.viterbi_pallas`) and the
-    batched XLA path elsewhere; force with ``xla`` / ``pallas`` /
-    ``pallas-interpret``."""
-    if impl == "auto":
-        h_ok = C.shape[1] % 8 == 0
-        impl = "pallas" if (jax.default_backend() not in ("cpu",)
-                            and h_ok) else "xla"
-    if impl in ("pallas", "pallas-interpret"):
-        from rayuela_tpu.ops.viterbi_pallas import viterbi_encode_pallas
-        return viterbi_encode_pallas(
-            X, C, interpret=impl == "pallas-interpret")
+    The batched `quantize_chainq` encoder (reference
+    `src/ChainQ.jl:305-348`, which dispatches to Julia/C++/CUDA
+    backends)."""
     return _viterbi_encode_xla(X, C, chunk=chunk)
 
 

@@ -41,11 +41,11 @@ Array = jax.Array
 
 
 @_functools.lru_cache(maxsize=32)
-def _sharded_viterbi_fn(mesh: Mesh, chunk: int, impl: str):
+def _sharded_viterbi_fn(mesh: Mesh, chunk: int):
     from jax import shard_map
 
     def local(X, C):
-        return viterbi_encode(X, C, chunk=chunk, impl=impl)
+        return viterbi_encode(X, C, chunk=chunk)
 
     fn = shard_map(local, mesh=mesh,
                    in_specs=(P("data", None), P()),
@@ -54,23 +54,21 @@ def _sharded_viterbi_fn(mesh: Mesh, chunk: int, impl: str):
 
 
 def sharded_viterbi_encode(mesh: Mesh, X: Array, C: Array, *,
-                           chunk: int = 2048,
-                           impl: str = "auto") -> Array:
+                           chunk: int = 2048) -> Array:
     """Data-parallel exact Viterbi encode over the ``data`` mesh axis
-    (the TPU mapping of `src/ChainQ.jl:334-344`'s worker farm). ``X``
+    (the device-mesh mapping of `src/ChainQ.jl:334-344`'s worker farm). ``X``
     may be ragged; pad rows are encoded and discarded."""
     ndata = mesh.shape["data"]
     n = X.shape[0]
     pad = -n % ndata
     if pad:
         X = jnp.pad(X, ((0, pad), (0, 0)))
-    B = _sharded_viterbi_fn(mesh, chunk, impl)(X, jnp.asarray(C))
+    B = _sharded_viterbi_fn(mesh, chunk)(X, jnp.asarray(C))
     return B[:n]
 
 
 @_functools.lru_cache(maxsize=16)
-def _chainq_step_fns(mesh: Mesh, h: int, d: int, m: int, chunk: int,
-                     impl: str):
+def _chainq_step_fns(mesh: Mesh, h: int, d: int, m: int, chunk: int):
     """Build-and-cache the jitted init / iteration / objective steps of
     the sharded ChainQ trainer (one compile each; `it`, keys and masks
     are traced so the host loop reuses the executables)."""
@@ -88,7 +86,7 @@ def _chainq_step_fns(mesh: Mesh, h: int, d: int, m: int, chunk: int,
         return lax.psum(jnp.sum(res * res), "data") / nvalid
 
     def _encode(RX, C, mask):
-        B = viterbi_encode(RX, C, chunk=chunk, impl=impl)
+        B = viterbi_encode(RX, C, chunk=chunk)
         return jnp.where(mask[:, None], B, -1)
 
     def init_local(X, B0, R0, mask):
@@ -133,8 +131,7 @@ def _chainq_step_fns(mesh: Mesh, h: int, d: int, m: int, chunk: int,
 
 
 def train_chainq_sharded(mesh: Mesh, X, B0, R0, *, h: int = 256,
-                         niter: int = 25, chunk: int = 2048,
-                         impl: str = "auto"
+                         niter: int = 25, chunk: int = 2048
                          ) -> tuple[ChainQModel, Array, Array]:
     """`models.chainq.train_chainq` over a device mesh: same math, same
     return contract ``(model, codes (n, m), obj (niter+1,))``. The n
@@ -163,7 +160,7 @@ def train_chainq_sharded(mesh: Mesh, X, B0, R0, *, h: int = 256,
                            NamedSharding(mesh, P("data")))
     nvalid = jax.device_put(jnp.float32(n), rep)
 
-    init, step, objf = _chainq_step_fns(mesh, h, d, m, chunk, impl)
+    init, step, objf = _chainq_step_fns(mesh, h, d, m, chunk)
     C, B = init(X, B0, R0, maskj)
     R = R0
     objs = []

@@ -1,26 +1,33 @@
-"""Multi-host (multi-process) bootstrap for pod-slice / DCN runs.
+"""Multi-host (multi-process) bootstrap for GPU clusters.
 
 The reference had no multi-machine story (Julia ``Distributed`` workers
 on ONE host + threads, SURVEY.md §2.5); everything in
 `rayuela_tpu.parallel` is written against a `jax.sharding.Mesh`, which
 extends across processes transparently once `jax.distributed` is
 initialized — the same `shard_map` training steps and sharded searches
-then run with data sharded across hosts, XLA routing collectives over
-ICI within a slice and DCN across slices.
+then run with data sharded across hosts, XLA routing collectives
+through NCCL (NVLink within a host, the network across hosts).
 
-Usage (one process per host, e.g. under a TPU pod-slice scheduler)::
+Usage: one process per host, each seeing all of its host's cards::
 
     from rayuela_tpu.parallel.launch import initialize, global_mesh
-    initialize()                      # env-driven (TPU pods: automatic)
+    initialize("host0:1234", num_processes=2, process_id=RANK)
     mesh = global_mesh(n_model=1)     # (data, model) over ALL processes
 
     # arrays created per-host: use host_local_to_global to assemble a
     # globally-sharded array from each host's local shard
     Xg = host_local_to_global(mesh, X_local)
 
-Single-process runs are untouched: `initialize()` is a no-op when no
-coordinator is configured, and `global_mesh` falls back to the local
-devices, so the same script works from a laptop CPU to a pod slice.
+Where several processes share a host, give each its own cards with
+``local_device_ids`` — no two processes may open one card (each JAX
+process reserves most of a card's memory when it starts).
+
+Nothing detects a cluster automatically: the coordinator address,
+process count and id come from the arguments or from the
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+``JAX_PROCESS_ID`` env vars. Single-process runs are untouched:
+`initialize()` is a no-op when no coordinator is configured, and
+`global_mesh` falls back to the local devices.
 """
 
 from __future__ import annotations
@@ -36,15 +43,16 @@ Array = jax.Array
 
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
-               process_id: int | None = None) -> bool:
+               process_id: int | None = None,
+               local_device_ids: list[int] | None = None) -> bool:
     """Initialize `jax.distributed` when a multi-process launch is
     configured; returns True if distributed mode is active.
 
     Configuration sources, in order: explicit arguments; the standard
     env vars (``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
-    ``JAX_PROCESS_ID``); TPU pod metadata (args all None — JAX
-    auto-detects on Cloud TPU). A plain single-process run (none of
-    the above) is a no-op."""
+    ``JAX_PROCESS_ID``). A plain single-process run (neither) is a
+    no-op. ``local_device_ids`` restricts this process to those cards
+    of its host (several processes per host)."""
     # NB: must not touch the XLA backend before jax.distributed
     # initializes (jax.process_count()/jax.devices() would), so probe
     # the distributed service state directly.
@@ -59,13 +67,11 @@ def initialize(coordinator_address: str | None = None,
         int(os.environ["JAX_PROCESS_ID"])
         if "JAX_PROCESS_ID" in os.environ else None)
     if coordinator_address is None and num_processes is None:
-        # No coordinator configured. On Cloud TPU pods jax.distributed
-        # can auto-detect, but probing it would hang off-pod; treat as
-        # single-process unless explicitly requested.
-        return False
+        return False                      # single-process run
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
     return True
 
 

@@ -6,21 +6,25 @@ Capability parity with reference `src/Linscan.jl` (``linscan_pq`` :5-26,
 (`deps/src/linscan_aqd.cpp:37-102`,
 `deps/src/linscan_aqd_pairwise_byte.cpp:14-176`).
 
-TPU-first design — **no table lookups**. The reference builds per-query
-LUTs and gather-accumulates one byte at a time (OpenMP over queries). On
-TPU, random gathers are slow and matmuls are ~free, and the LUT scan is
-mathematically a distance between the query and the *reconstruction*:
+No table lookups in the scan itself: the LUT scan is mathematically a
+distance between the query and the *reconstruction*,
 
     sum_i LUT_i[B_i]  ==  |q|^2 - 2 q.x_hat + |x_hat|^2      (PQ/OPQ)
     -2 sum_i q.C_i[B_i] + dbnorm                             (LSQ byte-norms)
     sum_i |q - C_i[B_i]|^2                                   (CQ)
 
-so the scan becomes: stream code tiles, **decompress each tile once via
-one-hot matmuls (MXU)**, hit it with a (nq, d) x (d, tile) gemm (MXU),
-and keep per-tile top-k (exact: global top-k is contained in the union
-of per-tile top-k). The decompress cost is amortized over all queries in
-the batch. Identical scores to the reference's LUT accumulation up to
-f32 summation order.
+so the scan decodes each base tile once, scores it with one
+(nq, d) x (d, tile) matmul, and keeps per-tile top-k (exact: the global
+top-k is contained in the union of per-tile top-k). Identical scores
+to the reference's LUT accumulation up to f32 summation order.
+
+Two routes, chosen by `rayuela_tpu.platform`:
+
+* GPU: the fused Pallas-Triton kernel (`scan_kernel`), which never
+  writes a score block to device memory, plus an exact XLA repair of
+  the queries its certificate flags;
+* CPU: the XLA scans below (`scan_topk`, `exact_rescan`), which are
+  also the kernel's exact oracles (f32, HIGHEST precision).
 """
 
 from __future__ import annotations
@@ -32,10 +36,13 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
+from rayuela_tpu import platform
 from rayuela_tpu.ops.qerror import reconstruct, reconstruct_pq
 from rayuela_tpu.utils import cdiv
 
 Array = jax.Array
+
+_HI = lax.Precision.HIGHEST
 
 
 def _pad_axis0(x: Array, total: int, fill=0):
@@ -86,7 +93,8 @@ def scan_topk(Q: Array, C: Array, B: Array, *, k: int,
         Bt, start, ntt = args
         Xh = reconstruct_pq(C, Bt, Q.shape[1]) if pq \
             else reconstruct(C, Bt)                               # (tile,d)
-        qx = jnp.matmul(Q, Xh.T, preferred_element_type=jnp.float32)
+        qx = jnp.matmul(Q, Xh.T, preferred_element_type=jnp.float32,
+                        precision=_HI)
         x2 = jnp.sum(Xh * Xh, axis=-1) if ntt is None else ntt
         scores = q2 - 2.0 * qx + x2[None, :]                      # (nq,tile)
         gidx = start + lax.broadcasted_iota(jnp.int32, (1, tile), 1)
@@ -105,8 +113,9 @@ def scan_topk(Q: Array, C: Array, B: Array, *, k: int,
 @partial(jax.jit, static_argnames=("k", "tile"))
 def exact_rescan(Q: Array, Xd: Array, x2: Array, k: int,
                  tile: int = 1 << 15) -> tuple[Array, Array]:
-    """Exact XLA top-k over an already-decoded base — the fallback for
-    queries the Pallas scan's verification flags."""
+    """Exact XLA top-k over an already-decoded base (f32, HIGHEST
+    precision): the repair for queries the scan kernel's certificate
+    flags, and the CPU route of `search`."""
     n = Xd.shape[0]
     k = min(k, n)
     ntiles = cdiv(n, tile)
@@ -119,8 +128,9 @@ def exact_rescan(Q: Array, Xd: Array, x2: Array, k: int,
 
     def tile_fn(args):
         Xt, x2t, start = args
-        s = q2 - 2.0 * jnp.matmul(Q, Xt.T,
-                                  preferred_element_type=jnp.float32) \
+        s = q2 - 2.0 * jnp.matmul(Q, Xt.T.astype(jnp.float32),
+                                  preferred_element_type=jnp.float32,
+                                  precision=_HI) \
             + x2t[None, :]
         neg, loc = lax.top_k(-s, kk)
         return -neg, start + loc
@@ -133,18 +143,126 @@ def exact_rescan(Q: Array, Xd: Array, x2: Array, k: int,
     return -neg, jnp.take_along_axis(ids, loc, axis=1).astype(jnp.int32)
 
 
+# ---------------------------------------------------------------------------
+# Decoded index: decode once, search many times
+# ---------------------------------------------------------------------------
+
+class LinscanIndex:
+    """A decoded, scan-ready base set: build once, search many times.
+
+    The reference rebuilds per-query LUTs on every call; here the
+    (n, d) decode + norm terms are the index (built once via
+    `decode_base`), and each `search` is one fused scan."""
+
+    def __init__(self, Xd: Array, x2: Array):
+        self.Xd, self.x2 = Xd, x2
+        self.n = Xd.shape[0]
+
+
+def decode_base(C: Array, B: Array, *, pq: bool = False,
+                d: int | None = None, norm_term: Array | None = None,
+                dtype=jnp.float32, chunk: int = 65536
+                ) -> tuple[Array, Array]:
+    """One-time base decode → ``(Xd (n, d), x2 (n,))`` for the scan.
+
+    ``norm_term`` overrides the exact |x_hat|^2 (LSQ quantized norms /
+    CQ codebook norms, reference `src/Linscan.jl:118-193`)."""
+    n = B.shape[0]
+    nchunks = cdiv(n, chunk)
+    pad = nchunks * chunk - n
+    Bp = jnp.pad(B, ((0, pad), (0, 0)))
+
+    def dec(Bc):
+        Xc = reconstruct_pq(C, Bc, d) if pq else reconstruct(C, Bc)
+        return Xc.astype(dtype), jnp.sum(Xc * Xc, axis=-1)
+
+    Xd, x2 = lax.map(dec, Bp.reshape(nchunks, chunk, -1))
+    Xd = Xd.reshape(nchunks * chunk, -1)[:n]
+    x2 = x2.reshape(-1)[:n] if norm_term is None else norm_term
+    return Xd, x2
+
+
+def build_index(C: Array, B: Array, *, pq: bool = False,
+                d: int | None = None, norm_term: Array | None = None,
+                dtype=None) -> LinscanIndex:
+    """``dtype=None`` takes `platform.operand_dtype()`: bf16 on the GPU
+    (half the bytes each scan streams, tensor-core rate; scores keep
+    f32 accumulation and the f32 ``x2``), f32 on the CPU (tests compare
+    exactly)."""
+    dtype = platform.operand_dtype() if dtype is None else dtype
+    Xd, x2 = decode_base(C, B, pq=pq, d=d, norm_term=norm_term,
+                         dtype=dtype)
+    return LinscanIndex(Xd, x2)
+
+
+def search(index: LinscanIndex, Q: Array, k: int, *,
+           interpret: bool = False, **cfg) -> tuple[Array, Array]:
+    """Exact top-k over a decoded index, as true squared distances.
+
+    On the GPU (or with ``interpret=True``): the fused scan kernel,
+    then `scan_kernel.repair_flagged` (a deeper kernel pass, then
+    `exact_rescan`) for the queries its certificate flags. On the CPU:
+    `exact_rescan` alone. ``cfg`` overrides the kernel's plan
+    (`scan_kernel.plan`)."""
+    from rayuela_tpu.search.scan_kernel import (repair_flagged,
+                                                scan_topk_decoded)
+
+    k = min(k, index.n)       # never return padded (inf, fake-id) rows
+    Q = jnp.asarray(Q, jnp.float32)
+    if not (interpret or platform.on_gpu()):
+        return exact_rescan(Q, index.Xd, index.x2, k)
+
+    def kernel(Qs, **over):
+        return scan_topk_decoded(Qs, index.Xd, index.x2, k,
+                                 interpret=interpret, **{**cfg, **over})
+
+    def oracle(Qs):
+        d2, i2 = exact_rescan(Qs, index.Xd, index.x2, k)
+        return d2 - jnp.sum(Qs * Qs, axis=-1, keepdims=True), i2
+
+    out = kernel(Q)
+    if out is None:
+        return exact_rescan(Q, index.Xd, index.x2, k)
+    s, i = repair_flagged(*out, Q, kernel, oracle)
+    return s + jnp.sum(Q * Q, axis=-1, keepdims=True), i
+
+
+def search_streamed(C: Array, B, Q: Array, k: int, *,
+                    pq: bool = False, d: int | None = None,
+                    norm_term=None, shard_size: int = 1 << 20,
+                    interpret: bool = False) -> tuple[Array, Array]:
+    """Search a base set too large to decode into device memory at
+    once: codes stream from host memory shard by shard (each shard is
+    decoded, scanned, and released), and the per-shard top-k lists
+    merge exactly on host (reference ``nsplits``,
+    `src/LSQ_GPU.jl:218-264`, applied to the query path)."""
+    n = B.shape[0]
+    d = Q.shape[1] if d is None else d
+    best_v = best_i = None
+    for start in range(0, n, shard_size):
+        stop = min(start + shard_size, n)
+        Bs = jnp.asarray(B[start:stop])
+        nt = None if norm_term is None else jnp.asarray(
+            norm_term[start:stop])
+        idx = build_index(C, Bs, pq=pq, d=d, norm_term=nt)
+        dv, di = search(idx, Q, min(k, stop - start), interpret=interpret)
+        dv, di = np.asarray(dv), np.asarray(di) + start
+        if best_v is None:
+            best_v, best_i = dv, di
+        else:
+            cat_v = np.concatenate([best_v, dv], axis=1)
+            cat_i = np.concatenate([best_i, di], axis=1)
+            order = np.argsort(cat_v, axis=1)[:, :k]
+            best_v = np.take_along_axis(cat_v, order, axis=1)
+            best_i = np.take_along_axis(cat_i, order, axis=1)
+    return jnp.asarray(best_v), jnp.asarray(best_i)
+
+
 def _route(Q: Array, C: Array, B: Array, *, k: int, pq: bool,
-           norm_term: Array | None = None, backend: str = "auto",
-           **kw) -> tuple[Array, Array]:
-    """Pick the scan backend: the fused Pallas kernel on TPU (decode
-    once + on-chip top-k + verified-exact fallback), the pure-XLA tiled
-    scan elsewhere."""
-    if backend == "auto":
-        on_tpu = jax.default_backend() not in ("cpu",)
-        big = Q.shape[0] >= 32 and B.shape[0] >= 1 << 14
-        backend = "pallas" if (on_tpu and big and k <= 96 * 128) else "xla"
-    if backend == "pallas":
-        from rayuela_tpu.search.scan_pallas import build_index, search
+           norm_term: Array | None = None, **kw) -> tuple[Array, Array]:
+    """Decoded-index search (kernel + exact repair) on the GPU, the
+    tiled XLA scan on the CPU."""
+    if platform.on_gpu():
         idx = build_index(C, B, pq=pq, d=Q.shape[1], norm_term=norm_term)
         return search(idx, Q, min(k, B.shape[0]))
     return scan_topk(Q, C, B, k=k, pq=pq, norm_term=norm_term, **kw)

@@ -100,8 +100,11 @@ def test_generic_on_random_supports_matches_per_dim_ridge(rng):
     """Arbitrary (random) supports: every dimension's slice must equal
     the dense ridge solve restricted to its covering codebooks —
     exactly `updatecb_struct!`'s per-dim restricted LS
-    (`src/codebook_update.jl:296-310`)."""
+    (`src/codebook_update.jl:296-310`). Its own seeded draw: the
+    f32 solves are checked at a fixed tolerance, so the data must not
+    depend on which tests consumed the shared generator before."""
     from rayuela_tpu.ops.codebook_update import update_codebooks_generic
+    rng = np.random.default_rng(0)
     d, m, h, rho = 18, 5, 8, 1e-4
     X, _, B = random_dataset(rng, d=d, n=900, m=m, h=h)
     dim2C = rng.random((d, m)) < 0.5
@@ -150,7 +153,7 @@ def test_chain_matches_full_solve_on_chain_dims(rng):
 def test_update_codebooks_scale_invariant_ridge(rng):
     """Duplicating every vector scales (G, F) uniformly; with the
     ridge relative to diag(G) the solution must not change (an
-    absolute ridge silently de-regularizes as n grows — the TPU-scale
+    absolute ridge silently de-regularizes as n grows — the device-scale
     LSQ divergence of round 2)."""
     import jax.numpy as jnp
 

@@ -3,6 +3,7 @@ cross-implementation testing style, `test/chainq.jl:27-39`)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from rayuela_tpu.search.linscan import (eval_recall, linscan_cq, linscan_lsq,
                                         linscan_opq, linscan_pq, scan_topk)
@@ -110,3 +111,52 @@ def test_eval_recall():
                     [1, 2, 4]])   # miss
     curve = eval_recall(ids, gt, verbose=False)
     np.testing.assert_allclose(curve, [1 / 3, 2 / 3, 2 / 3])
+
+
+def test_decode_base_matches_reconstruct(rng):
+    from rayuela_tpu.ops.qerror import reconstruct
+    from rayuela_tpu.search.linscan import decode_base
+    X, C, B = random_dataset(rng, d=16, n=700, m=3, h=8)
+    Xd, x2 = decode_base(jnp.asarray(C), jnp.asarray(B), chunk=256)
+    ref = np.asarray(reconstruct(jnp.asarray(C), jnp.asarray(B)))
+    np.testing.assert_allclose(np.asarray(Xd), ref, rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(x2), (ref ** 2).sum(1),
+                               rtol=1e-5)
+    nt = jnp.arange(700, dtype=jnp.float32)
+    _, x2o = decode_base(jnp.asarray(C), jnp.asarray(B), norm_term=nt)
+    np.testing.assert_array_equal(np.asarray(x2o), np.asarray(nt))
+
+
+@pytest.mark.parametrize("shard", [100, 333, 4096])
+def test_search_streamed_matches_single_shot(rng, shard):
+    from rayuela_tpu.search.linscan import (build_index, search,
+                                            search_streamed)
+    X, C, B = random_dataset(rng, d=16, n=1000, m=4, h=16, pq=True)
+    Q = jnp.asarray(rng.standard_normal((5, 16)).astype(np.float32))
+    dv, di = search(build_index(jnp.asarray(C), jnp.asarray(B), pq=True,
+                                d=16), Q, 25)
+    dv2, di2 = search_streamed(jnp.asarray(C), np.asarray(B), Q, 25,
+                               pq=True, d=16, shard_size=shard)
+    np.testing.assert_allclose(np.asarray(dv2), np.asarray(dv),
+                               rtol=1e-5, atol=1e-4)
+    # ids may permute among duplicate codes (equal distances): each
+    # returned id must score its slot's distance
+    from rayuela_tpu.ops.qerror import reconstruct_pq
+    Xd = np.asarray(reconstruct_pq(jnp.asarray(C), jnp.asarray(B), 16))
+    D = ((np.asarray(Q)[:, None] - Xd[None]) ** 2).sum(-1)
+    np.testing.assert_allclose(np.take_along_axis(D, np.asarray(di2), 1),
+                               np.asarray(dv), rtol=1e-4, atol=1e-4)
+
+
+def test_exact_rescan_is_f32_highest_on_bf16_base(rng):
+    """The oracle upcasts a bf16 decoded base and scores in f32."""
+    from rayuela_tpu.search.linscan import exact_rescan
+    Xd = rng.standard_normal((300, 16)).astype(np.float32)
+    Xb = jnp.asarray(Xd).astype(jnp.bfloat16)
+    x2 = jnp.sum(Xb.astype(jnp.float32) ** 2, axis=1)
+    Q = rng.standard_normal((4, 16)).astype(np.float32)
+    s, i = exact_rescan(jnp.asarray(Q), Xb, x2, 7)
+    Xr = np.asarray(Xb.astype(jnp.float32), np.float64)
+    D = ((Q[:, None].astype(np.float64) - Xr[None]) ** 2).sum(-1)
+    np.testing.assert_allclose(np.asarray(s), np.sort(D, 1)[:, :7],
+                               rtol=1e-5, atol=1e-4)

@@ -125,3 +125,52 @@ def test_apply_schedule_forms():
     np.testing.assert_allclose(
         np.asarray(apply_schedule(s, 4, 10, 3, 0.5)),
         np.full(3, 0.25), rtol=1e-6)
+
+
+def test_icm_running_sweep_is_exact_coordinate_descent(rng):
+    """Running-sum form: after one visit of node i its code is the
+    exact argmin of the conditional energy given all other codes, and
+    the carried reconstruction S equals the decode of the codes."""
+    from rayuela_tpu.ops.icm import _icm_sweeps_running
+    from rayuela_tpu.ops.qerror import get_unaries, reconstruct
+    m, h, d, n = 4, 8, 16, 50
+    X, C, B = random_dataset(rng, d=d, n=n, m=m, h=h)
+    u = jnp.transpose(get_unaries(X, C), (1, 0, 2))
+    order = jnp.asarray([2, 0, 3, 1], jnp.int32)
+    Bout, S = _icm_sweeps_running(u, jnp.asarray(C), jnp.asarray(B),
+                                  order, 1, jnp.float32)
+    Bout = np.asarray(Bout)
+    np.testing.assert_allclose(np.asarray(S), np.asarray(
+        reconstruct(jnp.asarray(C), jnp.asarray(Bout))), rtol=1e-5,
+        atol=1e-4)
+    i = 1                                  # visited last
+    for v in range(n):
+        costs = []
+        for b in range(h):
+            Bv = Bout[v].copy()
+            Bv[i] = b
+            costs.append(np_energy(X[v:v + 1], C, Bv[None])[0])
+        cur = np_energy(X[v:v + 1], C, Bout[v][None])[0]
+        assert cur <= min(costs) + 1e-4
+
+
+@pytest.mark.parametrize("m,npert", [(3, 1), (4, 2)])
+def test_icm_forms_agree_in_f32(rng, m, npert):
+    """On the CPU (f32 everywhere) the running-sum and table forms
+    visit the same nodes with the same conditionals: same codes."""
+    from rayuela_tpu.ops.icm import encoding_icm
+    X, C, B0 = random_dataset(rng, d=16, n=300, m=m, h=8)
+    key = jax.random.PRNGKey(3)
+    kw = dict(ilsiter=3, icmiter=2, npert=npert, chunk=128)
+    Br = encoding_icm(key, jnp.asarray(X), jnp.asarray(C),
+                      jnp.asarray(B0), form="running", **kw)
+    Bt = encoding_icm(key, jnp.asarray(X), jnp.asarray(C),
+                      jnp.asarray(B0), form="table", **kw)
+    assert (np.asarray(Br) == np.asarray(Bt)).mean() > 0.99
+
+
+def test_encoding_icm_rejects_unknown_form(rng):
+    from rayuela_tpu.ops.icm import encoding_icm
+    X, C, B0 = random_dataset(rng, d=8, n=20, m=2, h=4)
+    with pytest.raises(ValueError, match="form"):
+        encoding_icm(jax.random.PRNGKey(0), X, C, B0, form="pallas")

@@ -113,14 +113,15 @@ def test_pq_lloyd_sharded_matches_unsharded(rng, mesh):
 
 
 def test_sharded_codes_search_matches_local(rng, mesh):
-    """Code-resident sharded search (codes sharded over data, LUTs
-    replicated, interpret mode) == single-device XLA LUT scan — and the
-    jitted executable is cached across calls."""
+    """Code-resident sharded search (codes sharded over data, queries
+    and codebooks replicated; the CPU route is the XLA LUT scan per
+    shard) == single-device XLA LUT scan — and the jitted executable is
+    cached across calls."""
     from rayuela_tpu.parallel.mesh import (_sharded_search_codes_fn,
                                            sharded_search_codes)
-    from rayuela_tpu.search.scan_codes_pallas import (build_luts,
-                                                      pack_codes,
-                                                      xla_lut_scan)
+    from rayuela_tpu.search.codes import (build_luts, pack_codes,
+                                          xla_lut_scan)
+    from tests.test_codes import _lut_brute
     d, m, h, n, nq, k = 16, 4, 16, 2111, 6, 15   # ragged vs 4-way shard
     X, C, B = random_dataset(rng, d=d, n=n, m=m, h=h, pq=True)
     Q = jnp.asarray(rng.standard_normal((nq, d)).astype(np.float32))
@@ -128,66 +129,56 @@ def test_sharded_codes_search_matches_local(rng, mesh):
     packed = pack_codes(jnp.asarray(B))
     s_ref, i_ref = xla_lut_scan(T, jnp.asarray(B), k)
     before = _sharded_search_codes_fn.cache_info().misses
-    s_sh, i_sh, fl = sharded_search_codes(
-        mesh, T, packed, k=k, r=16, bq=8, tile=2048,
-        lut_dtype=jnp.float32, interpret=True)
-    s_sh2, _, _ = sharded_search_codes(
-        mesh, T, packed, k=k, r=16, bq=8, tile=2048,
-        lut_dtype=jnp.float32, interpret=True)
+    s_sh, i_sh, fl = sharded_search_codes(mesh, Q, jnp.asarray(C), packed,
+                                          k=k, pq=True, d=d)
+    s_sh2, _, _ = sharded_search_codes(mesh, Q, jnp.asarray(C), packed,
+                                       k=k, pq=True, d=d)
     assert (_sharded_search_codes_fn.cache_info().misses - before) == 1
     assert not np.asarray(fl).any()
     np.testing.assert_allclose(np.asarray(s_sh), np.asarray(s_ref),
                                rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(np.asarray(s_sh2), np.asarray(s_sh))
     # returned ids score identically to the reference ranking
-    from tests.test_scan_codes import _lut_brute
-    s64 = _lut_brute(T, B)
-    picked = np.take_along_axis(s64, np.asarray(i_sh), axis=1)
+    picked = np.take_along_axis(_lut_brute(T, B), np.asarray(i_sh), axis=1)
     np.testing.assert_allclose(picked, np.asarray(s_sh),
                                rtol=1e-4, atol=1e-3)
 
 
 def test_sharded_codes_decode_search_matches_local(rng, mesh):
-    """DECODE-mode code-resident sharded search (in-kernel tile decode
-    per shard, interpret mode) == single-device XLA LUT scan."""
-    from rayuela_tpu.parallel.mesh import sharded_search_codes_decode
-    from rayuela_tpu.search.scan_codes_pallas import (build_luts,
-                                                      pack_codes,
-                                                      xla_lut_scan)
+    """The scan kernel's in-kernel decode per shard (interpret mode,
+    under shard_map) == single-device XLA LUT scan, for PQ codes and
+    for additive codes with a norms byte."""
+    from rayuela_tpu.parallel.mesh import sharded_search_codes
+    from rayuela_tpu.search.codes import (build_luts, pack_codes,
+                                          xla_lut_scan)
     d, m, h, n, nq, k = 16, 4, 16, 2111, 6, 15   # ragged vs 4-way shard
     X, C, B = random_dataset(rng, d=d, n=n, m=m, h=h, pq=True)
     Q = jnp.asarray(rng.standard_normal((nq, d)).astype(np.float32))
     T = build_luts(jnp.asarray(C), Q, pq=True, d=d)
-    packed = pack_codes(jnp.asarray(B))
-    s_ref, i_ref = xla_lut_scan(T, jnp.asarray(B), k)
-    s_sh, i_sh, fl = sharded_search_codes_decode(
-        mesh, Q, jnp.asarray(C), packed, k=k, pq=True, d=d, r=28,
-        bq=8, tile=1024, keep=4, op_dtype=jnp.float32, interpret=True)
+    s_ref, _ = xla_lut_scan(T, jnp.asarray(B), k)
+    s_sh, _, fl = sharded_search_codes(
+        mesh, Q, jnp.asarray(C), pack_codes(jnp.asarray(B)), k=k, pq=True,
+        d=d, interpret=True)
     assert not np.asarray(fl).any()
     np.testing.assert_allclose(np.asarray(s_sh), np.asarray(s_ref),
                                rtol=1e-4, atol=1e-3)
-    from tests.test_scan_codes import _lut_brute
-    s64 = _lut_brute(T, B)
-    picked = np.take_along_axis(s64, np.asarray(i_sh), axis=1)
-    np.testing.assert_allclose(picked, np.asarray(s_sh),
-                               rtol=1e-4, atol=1e-3)
-    # qsuper (two-level query blocking) through the sharded wrapper:
-    # identical results, per-shard decode reused across sub-blocks
-    s_qs, i_qs, fl2 = sharded_search_codes_decode(
-        mesh, Q, jnp.asarray(C), packed, k=k, pq=True, d=d, r=28,
-        bq=4, tile=1024, keep=4, op_dtype=jnp.float32, interpret=True,
-        qsuper=2)
-    assert not np.asarray(fl2).any()
-    picked = np.take_along_axis(s64, np.asarray(i_qs), axis=1)
-    np.testing.assert_allclose(picked, np.asarray(s_ref),
-                               rtol=1e-4, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(s_qs), np.asarray(s_ref),
+    _, Ca, _ = random_dataset(rng, d=d, n=n, m=m, h=h)
+    ncb = jnp.asarray(rng.random(h).astype(np.float32) * 10)
+    nco = jnp.asarray(rng.integers(0, h, n).astype(np.int32))
+    Ta = build_luts(jnp.asarray(Ca), Q, norms_cbook=ncb)
+    Ba = jnp.concatenate([jnp.asarray(B), nco[:, None]], axis=1)
+    s_ref, _ = xla_lut_scan(Ta, Ba, k)
+    s_sh, _, fl = sharded_search_codes(
+        mesh, Q, jnp.asarray(Ca), pack_codes(jnp.asarray(B), nco), k=k,
+        pq=False, d=d, norms_cbook=ncb, interpret=True)
+    assert not np.asarray(fl).any()
+    np.testing.assert_allclose(np.asarray(s_sh), np.asarray(s_ref),
                                rtol=1e-4, atol=1e-3)
 
 
 def test_sharded_pallas_search_matches_local(rng, mesh):
-    """Decoded-index sharded search (fused kernel per shard, interpret
-    mode) == single-device exact scan."""
+    """Decoded-index sharded search (the scan kernel per shard,
+    interpret mode) == single-device exact scan."""
     from rayuela_tpu.parallel.mesh import sharded_search
     from rayuela_tpu.search.linscan import exact_rescan
     n, d, nq, k = 2111, 16, 6, 15   # ragged vs 4-way shard
@@ -195,8 +186,7 @@ def test_sharded_pallas_search_matches_local(rng, mesh):
     x2 = jnp.sum(Xd * Xd, axis=-1)
     Q = jnp.asarray(rng.standard_normal((nq, d)).astype(np.float32))
     d_ref, i_ref = exact_rescan(Q, Xd, x2, k)
-    d_sh, i_sh, fl = sharded_search(mesh, Xd, x2, Q, k=k, r=16, bq=8,
-                                    tile=2048, interpret=True)
+    d_sh, i_sh, fl = sharded_search(mesh, Xd, x2, Q, k=k, interpret=True)
     assert not np.asarray(fl).any()
     np.testing.assert_array_equal(np.asarray(i_sh), np.asarray(i_ref))
     np.testing.assert_allclose(np.asarray(d_sh), np.asarray(d_ref),
@@ -221,7 +211,7 @@ def test_launch_single_process_fallbacks(rng, mesh):
 
 def test_api_search_with_mesh_matches_single(rng, mesh):
     """Facade `api.search(..., mesh=...)`: sharded results == the
-    exact brute-force top-k (decoded mode, interpret kernels)."""
+    exact brute-force top-k (decoded mode, interpret-mode kernel)."""
     from rayuela_tpu import api
     d, m, h = 16, 4, 16
     Xt = rng.standard_normal((600, d)).astype(np.float32)
@@ -261,27 +251,18 @@ def test_api_search_codes_with_mesh_matches_single(rng, mesh):
 
 def test_api_search_codes_mesh_flagged_rescue_is_tiled(rng, mesh,
                                                        monkeypatch):
-    """VERDICT r4 #1: certificate-flagged queries on the
-    api.search(mesh=, mode='codes') path must repair through the TILED
-    LUT oracle — never whole-base unpack_codes + xla_lut_scan (~4m
-    bytes/vector unpack + an (nflagged, n) score matrix => OOM at
-    n >= 1e8). Force flags with a tie-saturated base and assert (a)
-    the tiled oracle ran with bounded segment unpacks, (b) results
-    stay exact."""
+    """Certificate-flagged queries on the api.search(mesh=,
+    mode='codes') path must repair through the TILED LUT oracle —
+    never a whole-base unpack_codes + xla_lut_scan (~4m bytes/vector
+    unpack + an (nflagged, n) score matrix would not fit at n >= 1e8).
+    Force flags with a one-deep kernel buffer and assert (a) the tiled
+    oracle ran with bounded segment unpacks, (b) results stay exact."""
     from rayuela_tpu import api
-    from rayuela_tpu.search import scan_codes_pallas as scp
-    d, m, h, n = 16, 4, 16, 16384
+    from rayuela_tpu.search import codes as scp
+    d, m, h, n = 16, 4, 16, 4096
     Xt = rng.standard_normal((600, d)).astype(np.float32)
-    # 24 copies of one vector all in LANE 0 of shard 0 (rows t*128):
-    # in pack32 mode their keys are distinct (same score, ascending
-    # rid), so > r of the true top-k live in one lane -> the lane
-    # buffer (r=6) provably overflows -> certificate flags
     Xb = rng.standard_normal((n, d)).astype(np.float32)
-    v = rng.standard_normal((d,)).astype(np.float32) * 3.0
-    for t in range(24):
-        Xb[t * 128] = v
     Q = rng.standard_normal((4, d)).astype(np.float32)
-    Q[0] = v
     model = api.train(Xt, method="pq", m=m, h=h, niter=3)
     idx = api.index_base(model, Xb, mode="codes")
     seen = []
@@ -300,10 +281,10 @@ def test_api_search_codes_mesh_flagged_rescue_is_tiled(rng, mesh,
         return orig_tiled(ix, Qj, k, dd, lut_dtype, qblock=2, seg=512)
 
     monkeypatch.setattr(scp, "_xla_lut_scan_tiled", tiled)
+    # 16 lanes x depth 1 per shard: 16 slots for k=16 overflow at once
     s2, i2 = api.search(idx, Q, k=16, mesh=mesh, interpret=True,
-                        lut_dtype=jnp.float32, r=6, bq=8, tile=1024,
-                        pack=True)
-    assert called.get("yes"), "tie-saturated base did not flag"
+                        lut_dtype=jnp.float32, r=1, tn=16, nsplit=1)
+    assert called.get("yes"), "a one-deep buffer did not flag"
     assert seen and max(seen) <= 512      # no whole-base unpack
     from rayuela_tpu.ops.qerror import reconstruct_pq
     Xd = np.asarray(reconstruct_pq(jnp.asarray(model.codebooks),
@@ -437,55 +418,40 @@ def test_sharded_encoding_icm_matches_budget(rng, mesh):
     assert float(qerror(X, C, B)) <= float(qerror(X, C, B0)) + 1e-5
 
 
-def test_sharded_codes_search_segments_big_shards(rng, mesh,
-                                                  monkeypatch):
-    """Shards beyond the kernel's packed-id range segment IN-SHARD
-    (`_scan_shard_segments`) with an exact merge — force tiny segments
-    and compare both sharded code paths against the XLA LUT oracle."""
+def test_sharded_codes_search_segments_big_shards(rng, mesh):
+    """Shards far larger than one kernel split: each program walks many
+    tiles (row ids are int32, no segmentation) — both sharded code
+    routes against the XLA LUT oracle."""
     from rayuela_tpu.parallel import mesh as pmesh
-    from rayuela_tpu.search import scan_codes_pallas as scp
+    from rayuela_tpu.search import codes as scp
     d, m, h, n, nq, k = 16, 4, 16, 5000, 6, 15
     X, C, B = random_dataset(rng, d=d, n=n, m=m, h=h, pq=True)
     Q = jnp.asarray(rng.standard_normal((nq, d)).astype(np.float32))
     T = scp.build_luts(jnp.asarray(C), Q, pq=True, d=d)
     packed = scp.pack_codes(jnp.asarray(B))
-    s_ref, i_ref = scp.xla_lut_scan(T, jnp.asarray(B), k)
-    monkeypatch.setattr(scp, "_DECODE_SEG", 512)  # shard_n=1250 > 512
-    s_sh, i_sh, fl = pmesh.sharded_search_codes(
-        mesh, T, packed, k=k, r=16, bq=8, tile=2048,
-        lut_dtype=jnp.float32, interpret=True)
-    assert not np.asarray(fl).any()
-    np.testing.assert_allclose(np.asarray(s_sh), np.asarray(s_ref),
-                               rtol=1e-4, atol=1e-3)
-    Cf, nrm = scp.build_decode_operands(jnp.asarray(C), pq=True, d=d,
-                                        op_dtype=jnp.float32)
-    s_dc, i_dc, fl2 = pmesh.sharded_search_codes_decode(
-        mesh, Q, jnp.asarray(C), packed, k=k, pq=True, d=d,
-        r=24, bq=8, tile=1024, keep=0, op_dtype=jnp.float32,
-        interpret=True)
-    assert not np.asarray(fl2).any()
-    np.testing.assert_allclose(np.asarray(s_dc), np.asarray(s_ref),
-                               rtol=1e-4, atol=1e-3)
+    s_ref, _ = scp.xla_lut_scan(T, jnp.asarray(B), k)
+    for interpret in (False, True):
+        s_sh, _, fl = pmesh.sharded_search_codes(
+            mesh, Q, jnp.asarray(C), packed, k=k, pq=True, d=d,
+            interpret=interpret, tn=16, nsplit=2, r=4)
+        assert not np.asarray(fl).any()
+        np.testing.assert_allclose(np.asarray(s_sh), np.asarray(s_ref),
+                                   rtol=1e-4, atol=1e-3)
 
 
-def test_sharded_decoded_search_segments_big_shards(rng, mesh,
-                                                    monkeypatch):
-    """Decoded sharded search with shards beyond the pack32 row-id
-    range: in-shard segmentation (`_scan_shard_segments_decoded`)
-    must keep results identical to the unsegmented path."""
+def test_sharded_decoded_search_segments_big_shards(rng, mesh):
+    """Decoded sharded search with shards far larger than one kernel
+    split, and a plan shallow enough to flag: `sharded_search_exact`
+    repairs flagged queries, so results stay exact."""
     from rayuela_tpu.parallel import mesh as pmesh
-    from rayuela_tpu.search import scan_pallas as sp
     n, d, nq, k = 5000, 32, 6, 15
     Xd = rng.standard_normal((n, d)).astype(np.float32)
     Xj, x2 = jnp.asarray(Xd), jnp.sum(jnp.asarray(Xd) ** 2, -1)
     Q = jnp.asarray(rng.standard_normal((nq, d)).astype(np.float32))
-    kw = dict(k=k, r=14, bq=8, tile=1024, interpret=True, pack=True)
-    d1, i1 = pmesh.sharded_search_exact(mesh, Xj, x2, Q, **kw)
-    monkeypatch.setattr(sp, "_SEG_DECODED", 1024)  # shard_n=1250 > 1024
-    # small segments legitimately flag more often (keep pre-reduction
-    # concentrates the global top-k per tile); the exact wrapper
-    # repairs them, so results must stay exact
-    d2, i2 = pmesh.sharded_search_exact(mesh, Xj, x2, Q, **kw)
+    d1, i1 = pmesh.sharded_search_exact(mesh, Xj, x2, Q, k=k)
+    d2, i2 = pmesh.sharded_search_exact(mesh, Xj, x2, Q, k=k,
+                                        interpret=True, tn=16, nsplit=1,
+                                        r=1)
     np.testing.assert_allclose(np.asarray(d2), np.asarray(d1),
                                rtol=1e-4, atol=1e-3)
     D = ((np.asarray(Q)[:, None, :] - Xd[None]) ** 2).sum(-1)
@@ -495,3 +461,5 @@ def test_sharded_decoded_search_segments_big_shards(rng, mesh,
     picked = np.take_along_axis(D, np.asarray(i2), axis=1)
     np.testing.assert_allclose(picked, np.asarray(d2), rtol=1e-4,
                                atol=1e-3)
+
+

@@ -1,17 +1,16 @@
 #!/usr/bin/env python3
 """Doc-drift check: every throughput number quoted in README.md and
-docs/*.md must be backed by a number in BASELINE.md.
+docs/*.md must be backed by a measured number in PERF.md.
 
-Round 3 shipped docs whose qps numbers had silently drifted from the
-measured BASELINE rows after a kernel change (VERDICT r3 #8); this
-makes that class of drift a CI failure instead of a judge finding.
+Docs whose qps numbers silently drift from the measurements after a
+kernel change are a CI failure instead of a review finding.
 
 Mechanics: extract every numeric token immediately followed by a
 throughput unit ("qps", "vecs/s", "vec-iters/s") from the doc files,
 normalize k-suffixes ("105.1k" -> 105100), and require each value to
-match some number in BASELINE.md within RTOL. Estimates marked "~" and
-tiny values are skipped. Exit 0 = consistent, 1 = drift (prints every
-unbacked number with file:line).
+match some number on a throughput line of PERF.md within RTOL.
+Estimates marked "~" and tiny values are skipped. Exit 0 =
+consistent, 1 = drift (prints every unbacked number with file:line).
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 DOC_FILES = [ROOT / "README.md", *sorted((ROOT / "docs").glob("*.md"))]
-BASELINE = ROOT / "BASELINE.md"
+PERF = ROOT / "PERF.md"
 
 # "105.1k qps", "735-758k vecs/s", "1518/1073 qps", "326k vec-iters/s"
 UNIT = r"(?:qps|vecs/s|vec-iters/s)"
@@ -36,29 +35,11 @@ HEAD_RTOL = 0.01     # forward check: headline quotes are 3+ digits
 MIN_VALUE = 50.0     # skip trivia like "2 qps" scaling estimates
 
 # Canonical CURRENT headline metrics -> files that must quote them
-# (within RTOL). This is the discriminative direction: when a bench
-# round moves a number, update it here + BASELINE.md, and any doc
-# still quoting the stale value fails because the new value is absent.
-# (The reverse direction — every doc number backed by BASELINE — is
-# also checked, but BASELINE's dense history makes it a weak filter.)
-HEADLINE = {
-    "codes_scan_qps_1m_m8_knn1000": (105101,
-                                     ["README.md", "docs/search.md"]),
-    "codes_scan_qps_1m_m8_knn100": (140775,
-                                    ["README.md", "docs/search.md"]),
-    "decoded_scan_qps_1m_knn1000": (95100, ["README.md",
-                                            "docs/search.md"]),
-    "codes_scan_qps_1e8_knn100": (1518, ["README.md",
-                                         "docs/search.md"]),
-    "codes_scan_qps_1e8_knn1000": (1073, ["README.md",
-                                          "docs/search.md"]),
-    "codes_scan_qps_1e9_knn100": (157, ["README.md",
-                                        "docs/search.md"]),
-    "codes_scan_qps_1e9_knn1000": (104, ["README.md",
-                                         "docs/search.md"]),
-    "icm_encode_vps_m8": (735000, ["README.md", "docs/lsq.md"]),
-    "icm_encode_vps_m16": (389000, ["README.md", "docs/lsq.md"]),
-}
+# (within HEAD_RTOL): metric name -> (value, [files]). When a benchmark
+# run moves a number, update it here and in PERF.md, and any doc still
+# quoting the stale value fails because the new value is absent. Empty
+# until the benchmark ledger holds GPU lines to quote.
+HEADLINE: dict[str, tuple[float, list[str]]] = {}
 
 
 def parse(tok: str) -> float | None:
@@ -98,14 +79,12 @@ _UNIT_RE = re.compile(UNIT)
 
 
 def baseline_numbers() -> list[float]:
-    """Backing = every number on a BASELINE.md line that mentions a
+    """Backing = every number on a PERF.md line that mentions a
     throughput unit. Matching against every number in the whole file
-    (dates, batch sizes, shapes) made the check vacuous; requiring the
-    unit immediately after the number missed BASELINE's table style
-    ("**1518 / 1073** (round 4 ...)" with 'queries/s' in another
-    column)."""
+    (dates, batch sizes, shapes) would make the check vacuous; a table
+    row may carry the unit in another column ('queries/s')."""
     vals = []
-    for line in BASELINE.read_text().splitlines():
+    for line in PERF.read_text().splitlines():
         if not _UNIT_RE.search(line) and "queries/s" not in line:
             continue
         for tok in PLAIN_NUM.findall(line):
@@ -140,16 +119,16 @@ def all_numbers(path: Path) -> list[float]:
 def main() -> int:
     failures = []
     # forward: every canonical headline value must be quoted in its
-    # files AND in BASELINE.md
+    # files AND in PERF.md
     for name, (v, files) in HEADLINE.items():
-        for rel in files + ["BASELINE.md"]:
+        for rel in files + ["PERF.md"]:
             path = ROOT / rel
             vals = all_numbers(path)
             if not any(abs(v - b) <= HEAD_RTOL * max(v, b)
                        for b in vals):
                 failures.append(
                     f"headline {name}={v:g} not quoted in {rel}")
-    # reverse: every unit-attached doc number has BASELINE backing
+    # reverse: every unit-attached doc number has PERF.md backing
     base = baseline_numbers()
     for path in DOC_FILES:
         if not path.exists():
@@ -158,7 +137,7 @@ def main() -> int:
             if not any(abs(v - b) <= RTOL * max(v, b) for b in base):
                 failures.append(
                     f"{path.relative_to(ROOT)}:{ln}  '{raw}' ({v:g}) "
-                    "has no BASELINE.md backing")
+                    "has no PERF.md backing")
     if failures:
         print(f"DOC DRIFT (rtol {RTOL:.0%}):")
         for f in failures:
@@ -166,7 +145,7 @@ def main() -> int:
         return 1
     n = sum(len(doc_numbers(p)) for p in DOC_FILES if p.exists())
     print(f"doc-drift check OK: {len(HEADLINE)} headline metrics "
-          f"present; {n} doc throughput numbers backed by BASELINE.md")
+          f"present; {n} doc throughput numbers backed by PERF.md")
     return 0
 
 
